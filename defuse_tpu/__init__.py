@@ -1,11 +1,10 @@
-"""defuse-tpu: a TPU-native gene-fusion discovery engine.
+"""A gene-fusion discovery engine with the capabilities of deFuse.
 
-Provides the capabilities of deFuse (discordant paired-end clustering via a
-fragment-length EM mixture model, greedy set-cover fragment assignment,
-split-read DP breakpoint discovery, empirical p-values, heuristic filters,
-annotation and adaboost classification), re-architected for TPU:
-batched JAX/Pallas kernels for the compute path, host-side Python/C++ for
-the sequential glue, jax.sharding for multi-host scale-out.
+Discordant paired-end clustering via a fragment-length EM mixture model,
+greedy set-cover fragment assignment, split-read DP breakpoint discovery,
+empirical p-values, heuristic filters, annotation and adaboost
+classification.  Native C++ runs the sequential host stages; batched JAX
+code screens split-read candidates on an NVIDIA GPU.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,7 @@ rows with a three-stage batched flow:
 
 1. **Collect** candidates by streaming the improper SAM against the
    binned mate regions (host, same nomination order as the reference).
-2. **Screen** all candidates on the TPU: the Pallas row-maxima kernel +
+2. **Screen** all candidates on the device: the batched row maxima +
    split-score combine yield each candidate's max split score (int32,
    bit-exact) — rejected candidates (the common case on real data) cost
    nothing further.
@@ -176,15 +176,14 @@ def realign_candidates_screened(realigner,
                                 ) -> list[SplitRow]:
     """Device-screened realignment, transfer-lean: unique fusion flanks +
     raw reads up, per-candidate max scores down
-    (``ops.split_dp_pallas.screen_candidates_pallas``); screen survivors
-    are enumerated by the native realigner.  Byte-identical rows to
+    (``ops.split_dp_batch.screen_candidates``); screen survivors are
+    enumerated by the native realigner.  Byte-identical rows to
     ``realign_candidates``."""
     if not candidates:
         return []
     import numpy as np
 
-    from ..ops.split_dp_batch import pad_batch
-    from ..ops.split_dp_pallas import screen_candidates_pallas
+    from ..ops.split_dp_batch import pad_batch, screen_candidates
 
     tasks = realigner.tasks
     cluster_ids = sorted({c.cluster_id for c in candidates})
@@ -204,8 +203,8 @@ def realign_candidates_screened(realigner,
     min_scores = np.array([accept_threshold(int(l)) for l in rl],
                           dtype=np.int32)
 
-    max_scores = np.asarray(screen_candidates_pallas(
-        u1p, u1l, u2rp, u2l, ref_idx, rp, rl, min_scores))
+    max_scores = screen_candidates(u1p, u1l, u2rp, u2l, ref_idx, rp, rl,
+                                   min_scores)
     survivors = np.nonzero(max_scores > 0)[0].tolist()
     if not survivors:
         return []

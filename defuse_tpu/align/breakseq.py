@@ -6,7 +6,7 @@ cds — ``defuse_run.pl:672-796``) and emits PSL rows feeding the
 annotation features (percent identity, homology, ORF phase, exon
 boundaries, EST islands).
 
-TPU-first design: exact k-mer seed hits from the shared ``SeedIndex``,
+Design: exact k-mer seed hits from the shared ``SeedIndex``,
 grouped per (target, strand, diagonal) into ungapped blocks, then chained
 across diagonals within an intron-size bound (spliced mode) or a small
 indel bound (unspliced).  Block match counts come from direct base

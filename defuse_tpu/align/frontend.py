@@ -656,7 +656,8 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
                 frag_base=0):
     """CLI helper: build indices from config-named references and run the
     frontend; returns run_pipeline keyword inputs.  ``use_device`` routes
-    candidate verification through the TPU (ops/verify_batch.py).
+    candidate verification through the GPU (ops/verify_batch.py) when
+    the native library is missing.
     ``frag_base`` offsets fragment ids globally when this process owns
     one shard of a multi-process (multi-host) run."""
     from ..cluster import native
@@ -767,19 +768,16 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
         with open(config.get_value("ig_gene_list")) as fh:
             ig_genes = {line.strip() for line in fh if line.strip()}
 
+    # candidate verify on the GPU only as the no-native fallback: with
+    # the native library built, its fused seed+verify is the default.
+    # DEFUSE_DEVICE_VERIFY=force puts verification on the device (on
+    # whatever device JAX has) regardless, =off keeps it on the host
     verify_fn = None
-    import os as _os_v
-    _verify_mode = _os_v.environ.get("DEFUSE_DEVICE_VERIFY", "auto")
+    _verify_mode = _os.environ.get("DEFUSE_DEVICE_VERIFY", "auto")
     if use_device and _verify_mode != "off" \
             and (not native.available() or _verify_mode == "force"):
-        # with the native driver available the fused C++ seed+verify
-        # wins over a tunneled link, so auto mode only engages the
-        # DeviceVerifier as the no-native fallback (its internal cost
-        # model then routes each call); DEFUSE_DEVICE_VERIFY=force puts
-        # verification on the chip regardless (local-link ablation).
-        # A dead device link must not hang the aligner (bounded probe).
-        from ..core.devices import tpu_backend_available
-        if tpu_backend_available():
+        from ..core.devices import gpu_device
+        if _verify_mode == "force" or gpu_device() is not None:
             from ..ops.verify_batch import DeviceVerifier
             verify_fn = DeviceVerifier()
     def run_shard(r1, r2, outdir, frag_base=0, append=False):

@@ -1,6 +1,6 @@
 """Seed-and-extend short-read aligner — the bowtie replacement.
 
-TPU-first design (SURVEY.md §7): exact k-mer seeds from a sorted-array
+Design (SURVEY.md §7): exact k-mer seeds from a sorted-array
 index (pigeonhole: 3 non-overlapping 16-mers cover any <=2-mismatch
 alignment of a 48-50bp read), candidate verification as a batched
 device-side mismatch count over gathered reference windows.  No gaps —

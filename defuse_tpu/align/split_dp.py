@@ -15,10 +15,10 @@ concerns).  The recurrence (no clamping at zero; end-gaps in the read cost
 
 The in-row horizontal dependency (``M[i-1][j] + gap``) is a prefix-max
 with linear decay, so each row is computable with vectorized ops plus one
-cumulative max — the same structure the TPU Pallas kernel uses (ref
-positions on lanes, row loop sequential).  ``ops/split_dp_tpu.py`` holds
-the batched device kernel; this module is the exact oracle and the host
-fallback.
+cumulative max — the same structure the batched device path uses (ref
+positions along the row, row loop sequential).  ``ops/split_dp_batch.py``
+holds the batched device path; this module is the exact oracle and the
+host fallback.
 """
 
 from __future__ import annotations
@@ -101,19 +101,16 @@ class SplitReadAligner:
         self.ref2 = ref2
         self.ref2_rev = ref2[::-1]
 
-    def align(self, read: str, min_score: int, force_split: bool = True):
-        """All maximal split alignments (``SplitReadAligner::GetAlignments``
-        with firstOnly=false).  Returns a list of SplitHit in the
-        reference's enumeration order (k ascending, then ref1 column, then
-        ref2 column)."""
+    def max_score(self, read: str, min_score: int) -> int:
+        """Best total split score at least ``min_score`` over the split
+        offsets, 0 when there is none — what the device screen
+        (``ops/split_dp_batch.screen_candidates``) computes."""
+        return self._best_splits(read, min_score)[0]
+
+    def _best_splits(self, read: str, min_score: int):
+        """(max_score, split offsets achieving it, m1, m2)."""
         m1 = fill_matrix(self.ref1, read)
         m2 = fill_matrix(self.ref2_rev, read[::-1])
-
-        if not force_split:
-            best = max(int(m1.max(initial=0)), int(m2.max(initial=0)))
-            if best >= min_score:
-                return []
-
         n_read = len(read)
         # row maxima with anchor threshold
         rm1 = np.array([_row_max(m1, j, MIN_SPLIT_SCORE)
@@ -131,9 +128,24 @@ class SplitReadAligner:
                 ks = [k]
             elif t >= min_score and t == max_score:
                 ks.append(k)
+        return max_score, ks, m1, m2
+
+    def align(self, read: str, min_score: int, force_split: bool = True):
+        """All maximal split alignments (``SplitReadAligner::GetAlignments``
+        with firstOnly=false).  Returns a list of SplitHit in the
+        reference's enumeration order (k ascending, then ref1 column, then
+        ref2 column)."""
+        max_score, ks, m1, m2 = self._best_splits(read, min_score)
+
+        if not force_split:
+            best = max(int(m1.max(initial=0)), int(m2.max(initial=0)))
+            if best >= min_score:
+                return []
 
         if max_score == 0:
             return []
+
+        n_read = len(read)
 
         hits = []
         for k in ks:

@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "margins at depth'; default 0 = off, output "
                           "identical to deFuse's)")
     run.add_argument("--no-device", action="store_true",
-                     help="host-only compute (no TPU)")
+                     help="host-only compute (no GPU)")
     run.add_argument("--prealigned", default=None,
                      help="directory with spanning.compact, improper.sam,"
                           " concordant.sam from an external aligner")
@@ -202,9 +202,13 @@ def main(argv=None) -> int:
                 use_device=not args.no_device)
         else:
             from ..align.frontend import align_reads
+            from ..utils.profiling import Tracer
+            tracer = Tracer(args.output, "metrics.align.json")
             aligned = align_reads(config, args.output, args.fastq1,
                                   args.fastq2,
                                   use_device=not args.no_device)
+            tracer.mark("align")
+            tracer.flush()
             outs = run_pipeline(
                 config=config, output_dir=args.output,
                 library_name=args.name, use_device=not args.no_device,

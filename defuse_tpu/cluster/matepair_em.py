@@ -24,7 +24,7 @@ differently, which affects nothing downstream because tied coordinates
 produce identical partial-sum breakpoints.
 
 This oracle is the parity ground truth; ``matepair_em_batch.py`` holds the
-batched JAX version used on TPU, validated against this one.
+batched JAX version used on the GPU, validated against this one.
 """
 
 from __future__ import annotations

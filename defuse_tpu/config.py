@@ -3,8 +3,7 @@
 Key=value lines with ``$(var)`` interpolation, injected
 ``dataset_directory``/``source_directory``, list keys by numeric suffix
 and comma-split lists (``scripts/configdata.pm``).  All reference
-threshold keys keep their meanings (``scripts/config.txt:66-112``); new
-TPU-specific keys are namespaced ``tpu_*``.
+threshold keys keep their meanings (``scripts/config.txt:66-112``).
 """
 
 from __future__ import annotations
@@ -37,11 +36,6 @@ DEFAULTS = {
     "reads_per_job": "1000000",
     "mt_chromosome": "MT",
     "num_blat_sequences": "10000",
-    # TPU runtime
-    "tpu_batch_reads": "512",
-    "tpu_em_dtype": "auto",
-    "tpu_mesh_data": "1",
-    "tpu_mesh_inst": "1",
 }
 
 

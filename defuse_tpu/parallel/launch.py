@@ -2,9 +2,9 @@
 
 The reference scales with cmdrunner submitters (SGE/PBS/LSF fork jobs
 per fastq shard, ``cmdrunner.pm:161-292``) and merges shard artifacts
-with dedicated Perl mergers.  The TPU-native equivalent is SPMD: every
+with dedicated Perl mergers.  The equivalent here is SPMD: every
 host runs the same program over its fastq shard, device compute runs
-under one global ``jax.sharding.Mesh`` (ICI/DCN collectives), and the
+under one global ``jax.sharding.Mesh`` (XLA collectives), and the
 order-sensitive tail stages run replicated from merged host artifacts.
 
 ``init_distributed`` wraps ``jax.distributed.initialize`` with
@@ -33,8 +33,7 @@ def init_distributed() -> tuple[int, int]:
 
     Returns (process_id, num_processes).  With no coordinator in the
     environment this is a no-op single-process setup, so the same entry
-    point serves laptops and pods (``jax.distributed.initialize`` picks
-    up TPU pod metadata automatically when present).
+    point serves one host and many.
     """
     coordinator = os.environ.get("JAX_COORDINATOR")
     n_proc = os.environ.get("JAX_NUM_PROCESSES")
@@ -43,8 +42,8 @@ def init_distributed() -> tuple[int, int]:
         import jax
         if jax.config.jax_platforms == "cpu":
             # CPU multi-process collectives need an explicit backend;
-            # gloo ships with jaxlib.  (TPU/GPU use ICI/NCCL and ignore
-            # this setting.)
+            # gloo ships with jaxlib.  (GPUs use NCCL and ignore this
+            # setting.)
             try:
                 jax.config.update("jax_cpu_collectives_implementation",
                                   "gloo")
@@ -55,11 +54,6 @@ def init_distributed() -> tuple[int, int]:
             num_processes=int(n_proc),
             process_id=int(proc_id))
         return int(proc_id), int(n_proc)
-    if os.environ.get("JAX_AUTO_DISTRIBUTED"):
-        # TPU pod: runtime metadata provides the topology
-        import jax
-        jax.distributed.initialize()
-        return jax.process_index(), jax.process_count()
     return 0, 1
 
 

@@ -1,7 +1,7 @@
 """Data-parallel sharding — ``split_fastq.pl`` / ``divide_sam_chr_pairs.pl``
 equivalents plus the associative merge contracts.
 
-The distribution model mirrors the reference (SURVEY.md §2.5) with TPU
+The distribution model mirrors the reference (SURVEY.md §2.5) with JAX
 collectives in place of the filesystem barrier:
 
 * reads shard into ``reads_per_job`` chunks; each shard runs the aligner

@@ -2,13 +2,13 @@
 
 The reference runs deFuse once per library (``defuse_run.pl:51-66``
 takes exactly one -1/-2 pair); a production cohort — the BASELINE
-deployment shape is 8+ tumour libraries on a v5p-32/64 pod — needs a
+deployment shape is 8+ tumour libraries — needs a
 launcher that fans libraries out across hosts, shares the one-time
 reference artifacts, survives restarts, and summarizes fusions
 cohort-wide (recurrence across libraries is the clinical signal a
 cohort exists for).
 
-Design (TPU-native, not a cluster-submitter translation):
+Design (not a cluster-submitter translation):
 
 * a *manifest* lists the libraries (TSV ``name fastq1 fastq2`` or a
   JSON array of objects); the dataset/reference is built once with
@@ -21,7 +21,10 @@ Design (TPU-native, not a cluster-submitter translation):
   collectives inside a library still use the global mesh;
 * each library runs in its own subprocess (``python -m defuse_tpu
   run``) so one library's failure cannot take down the cohort; within
-  a rank, ``workers`` libraries run concurrently;
+  a rank, ``workers`` libraries run concurrently, each pinned to one
+  GPU (``CUDA_VISIBLE_DEVICES``), least-loaded card first; when there
+  are more workers than cards, the processes sharing a card split its
+  memory (``XLA_PYTHON_CLIENT_MEM_FRACTION``);
 * restartability: a library whose ``results.filtered.tsv`` exists is
   skipped (the per-stage mtime skip inside ``pipeline.runner`` covers
   partial reruns of an unfinished library);
@@ -89,6 +92,23 @@ def _rank_nprocs() -> tuple[int, int]:
     return 0, 1
 
 
+def worker_env(card: str | None, per_card: int) -> dict:
+    """Environment of one library's process: pinned to ``card`` (a GPU
+    id; None = no pinning), and given 1/``per_card`` of the card's
+    memory, less a margin for each process's CUDA context, when
+    ``per_card`` processes share it."""
+    env = dict(os.environ)
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = card
+        if per_card > 1:
+            env["XLA_PYTHON_CLIENT_MEM_FRACTION"] = mem_fraction(per_card)
+    return env
+
+
+def mem_fraction(per_card: int) -> str:
+    return f"{0.9 / per_card:.3f}"
+
+
 def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
                workers: int = 1, use_device: bool = True,
                merge_timeout_s: float = 24 * 3600.0) -> dict:
@@ -117,7 +137,17 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
 
     mine = [(i, lb) for i, lb in enumerate(libs) if i % nprocs == rank]
     rows = []
-    pending: list[tuple[subprocess.Popen, Library, float]] = []
+    pending: list[tuple[subprocess.Popen, Library, float, str | None]] = []
+    cards: list[str] = []
+    if use_device:
+        from ..core.devices import visible_gpus
+        cards = visible_gpus()
+    per_card = -(-max(1, workers) // len(cards)) if cards else 1
+    running = {c: 0 for c in cards}
+    if per_card > 1:
+        print(f"cohort: {workers} workers on {len(cards)} GPUs; "
+              f"XLA_PYTHON_CLIENT_MEM_FRACTION={mem_fraction(per_card)}",
+              flush=True)
 
     def harvest(proc, lb, t0):
         res = out / lb.name / "results.filtered.tsv"
@@ -146,14 +176,20 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
         if not use_device:
             cmd += ["--no-device"]
         while len(pending) >= max(1, workers):
-            proc, plb, t0 = pending.pop(0)
+            proc, plb, t0, card = pending.pop(0)
             proc.wait()
             harvest(proc, plb, t0)
+            if card is not None:
+                running[card] -= 1
+        card = min(cards, key=lambda c: running[c]) if cards else None
+        if card is not None:
+            running[card] += 1
         libdir.mkdir(parents=True, exist_ok=True)
-        log = open(libdir / "cohort.log", "w")
-        pending.append((subprocess.Popen(cmd, stdout=log, stderr=log),
-                        lb, time.time()))
-    for proc, plb, t0 in pending:
+        with open(libdir / "cohort.log", "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=log,
+                                    env=worker_env(card, per_card))
+        pending.append((proc, lb, time.time(), card))
+    for proc, plb, t0, _card in pending:
         proc.wait()
         harvest(proc, plb, t0)
 

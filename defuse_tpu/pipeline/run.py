@@ -7,7 +7,7 @@ reruns resume):
   -> read stats + covariance samples     [read_stats.pl, calccov]
   -> discordant clustering (device EM)   [clustermatepairs]
   -> set cover                           [setcover]
-  -> split realignment (Pallas DP)       [dosplitalign]
+  -> split realignment (device screen)   [dosplitalign]
   -> breakpoint vote                     [evalsplitalign]
   -> spanning/split p-values             [evaluate_*.R]
   -> annotation                          [annotate_fusions.pl]
@@ -17,6 +17,7 @@ reruns resume):
 
 from __future__ import annotations
 
+import os
 import pathlib
 
 from ..annotate.adaboost import classify_results
@@ -144,11 +145,20 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
     _pt_inputs = pair_tables if pair_tables \
         else ([pair_table] if pair_table else [])
 
+    from ..utils.profiling import Tracer
+    _tracer = Tracer(str(out))
+    _mark = _tracer.mark
+    _tracer.info["device"] = "cpu"
     if use_device:
-        # launch the device probe now so it overlaps the host-side
-        # stages; discover collects the verdict before the screen
-        from ..core.devices import start_probe
-        start_probe()
+        from ..core.devices import gpu_device
+        if gpu_device() is None:
+            print("no GPU found: the device stages run on the host",
+                  flush=True)
+            use_device = False
+        else:
+            _tracer.info["device"] = "gpu"
+            _tracer.info["visible_gpus"] = os.environ.get(
+                "CUDA_VISIBLE_DEVICES", "all")
 
     reference_fasta = reference_fasta or config.get_value("reference_fasta")
     cdna_regions = cdna_regions or config.get_value("cdna_regions")
@@ -497,9 +507,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
     if _native.available():
         _native.pairtbl_cache_clear()
 
-    from ..utils.profiling import Tracer
-    _tracer = Tracer(str(out))
-    _mark = _tracer.mark
+    _mark("read stats+covariance")
 
     # --- cluster + split chain -----------------------------------------
     gm = GeneModels(gene_models_gtf) if gene_models_gtf else None

@@ -5,8 +5,9 @@ driver log (``defuse_run.pl:311,412,463`` pattern ``[date] step [N
 sec]``) plus per-job ``time`` output.  This module upgrades that to a
 structured, always-on metrics artifact plus opt-in JAX device profiling:
 
-* ``Tracer`` — records stage wall times (and arbitrary counters) and
-  writes ``metrics.json`` into the run output directory; stage lines
+* ``Tracer`` — records stage wall times, counters and run facts (such
+  as the device a stage ran on) and writes ``metrics.json`` into the
+  run output directory; stage lines
   still print when ``DEFUSE_STAGE_TIMING`` is set, preserving the
   familiar log format.
 * ``device_trace()`` — context manager wrapping device-heavy stages in
@@ -33,6 +34,8 @@ class Tracer:
         self._last = self._t0
         self.stages: list[dict] = []
         self.counters: dict[str, float] = {}
+        # run facts written at the top level of the artifact
+        self.info: dict[str, str] = {}
         self._path = (pathlib.Path(outdir) / artifact) if outdir else None
         self._echo = bool(os.environ.get("DEFUSE_STAGE_TIMING"))
 
@@ -60,6 +63,7 @@ class Tracer:
             "total_seconds": round(time.time() - self._t0, 4),
             "stages": self.stages,
             "counters": self.counters,
+            **self.info,
         }
         tmp = self._path.with_name(self._path.name + ".tmp")
         tmp.write_text(json.dumps(payload, indent=1))

@@ -1,7 +1,7 @@
 // defuse-tpu native host library
 //
 // C++ implementations of the sequential host-side stages that wrap the
-// TPU compute path: discordant mate-pair clustering (binning + exact
+// device compute path: discordant mate-pair clustering (binning + exact
 // mixture EM; algorithm spec: reference tools/clustermatepairs.cpp and
 // tools/MatePairEM.cpp — independently written against the byte-level
 // contracts the Python oracles in defuse_tpu/cluster/ pin down; the

@@ -35,7 +35,7 @@ sys.path.insert(0, str(REPO / "tests"))
 
 ENV = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
        "JAX_PLATFORMS": "cpu", "HOME": "/root",
-       "DEFUSE_ASSUME_BACKEND": "cpu"}
+       }
 
 PAIRS = {  # library -> (fusion transcripts, gene names)
     "lib1": ("TA", "TB"), "lib2": ("TA", "TB"), "lib3": ("TA", "TB"),

@@ -38,7 +38,7 @@ sys.path.insert(0, str(REPO / "scripts_dev"))
 
 ENV = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
        "JAX_PLATFORMS": "cpu", "HOME": "/root",
-       "DEFUSE_ASSUME_BACKEND": "cpu"}
+       }
 
 N_LIBS = 8
 N_RANKS = 4

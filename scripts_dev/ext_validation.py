@@ -71,7 +71,14 @@ def spliced_breakpoint(rng, gene):
 
 
 def generate(rng, n_pairs):
-    from defuse_tpu.core.types import revcomp
+    """Reference and library from one random stream."""
+    genome, genes = make_reference(rng)
+    return (genome, genes) + make_library(rng, genome, genes, n_pairs)
+
+
+def make_reference(rng):
+    """Two CHROM_MB-Mbp random chromosomes and N_GENES multi-exon genes
+    on them: (genome {name: seq}, [synthdata.Gene])."""
     from synthdata import Gene, random_seq
 
     chrom_len = int(CHROM_MB * 1_000_000)
@@ -90,6 +97,14 @@ def generate(rng, n_pairs):
             p += length + rng.randint(900, 5000)
         pos[chrom] = p + rng.randint(20_000, 60_000)
         genes.append(Gene(f"G{gi}", f"T{gi}", chrom, strand, exons))
+    return genome, genes
+
+
+def make_library(rng, genome, genes, n_pairs):
+    """One library of ``n_pairs`` read pairs on a reference from
+    ``make_reference``: N_FUSIONS fusions per the paper's protocol plus
+    expression-weighted background.  Returns (reads1, reads2, truth)."""
+    from defuse_tpu.core.types import revcomp
 
     p1 = 1.0 - (1.0 - ERROR_RATE) ** READ_LEN
 
@@ -204,7 +219,7 @@ def generate(rng, n_pairs):
     rng.shuffle(order)
     reads1 = [reads1[i] for i in order]
     reads2 = [reads2[i] for i in order]
-    return genome, genes, reads1, reads2, truth
+    return reads1, reads2, truth
 
 
 def main(n_pairs=2_000_000, seed=20110526, write_report=True):

@@ -1,7 +1,6 @@
 import sys, time, importlib.util, types
 sys.path.insert(0, "/root/repo"); sys.path.insert(0, "/root/repo/tests"); sys.path.insert(0, "scripts_dev")
 import os
-os.environ["DEFUSE_ASSUME_BACKEND"]="cpu"
 import jax; jax.config.update("jax_platforms","cpu")
 sys.argv=["x"]
 import defuse_tpu.align.frontend as F

@@ -117,9 +117,9 @@ def test_cli_end_to_end(tmp_path):
     assert flank2 in refseq or _rc(flank2) in refseq
 
 def test_cli_run_device_requested_host_fallback(tmp_path):
-    """`run` WITHOUT --no-device on a host with no usable TPU: the
-    bounded probe must fall back to the native path and still produce
-    results (no hang, no crash)."""
+    """`run` WITHOUT --no-device on a host with no GPU: the run goes on
+    on the host, says so in one line and records ``"device": "cpu"`` in
+    metrics.json, and still produces results."""
     ds = make_dataset(seed=9)
     paths = write_dataset(ds, tmp_path)
     gtf = tmp_path / "genes.gtf"
@@ -149,8 +149,7 @@ def test_cli_run_device_requested_host_fallback(tmp_path):
 
     env = {"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu", "HOME": "/root",
-           # the probe must see a non-TPU verdict without spawning jax
-           "DEFUSE_ASSUME_BACKEND": "cpu"}
+           }
 
     proc = subprocess.run(
         [sys.executable, "-m", "defuse_tpu", "create-ref",
@@ -168,6 +167,12 @@ def test_cli_run_device_requested_host_fallback(tmp_path):
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert (out / "results.tsv").exists()
+    assert "no GPU found" in proc.stdout
+    import json
+    metrics = json.loads((out / "metrics.json").read_text())
+    assert metrics["device"] == "cpu"
+    discover = json.loads((out / "metrics.discover.json").read_text())
+    assert "screen_device" not in discover
 
 
 def test_cli_run_accepts_bam_input(tmp_path):

@@ -15,7 +15,7 @@ from synthdata import make_dataset, write_dataset, write_genome_fasta, \
 
 ENV = {"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
        "JAX_PLATFORMS": "cpu", "HOME": "/root",
-       "DEFUSE_ASSUME_BACKEND": "cpu"}
+       }
 
 
 def _dataset(tmp_path):

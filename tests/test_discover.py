@@ -21,8 +21,8 @@ def test_discover_matches_golden(ref_binaries, tmp_path, use_device,
         if not native.available():
             pytest.skip("native library not built")
     if use_device:
-        # keep the device screen on under the CPU test backend (it would
-        # otherwise be skipped as interpret-mode-too-slow)
+        # keep the device screen on under the CPU test backend (it runs
+        # only where a GPU is found otherwise)
         monkeypatch.setenv("DEFUSE_DEVICE_SCREEN", "force")
     ds = make_dataset(seed=31, fusion_pair=("TA", "TD"), break_a=2400,
                       break_b=1000)

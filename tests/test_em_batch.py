@@ -61,7 +61,7 @@ def test_membership_agreement():
 
 
 def test_chunked_run_batch_identical():
-    """The TPU slab-chunked path (uniform slabs, last one padded by
+    """The GPU slab-chunked path (uniform slabs, last one padded by
     repeating row 0) must be bit-identical to the unchunked path — on
     CPU the default is unchunked, so this exercises the chunk logic
     explicitly with a chunk smaller than the batch."""
@@ -80,9 +80,8 @@ def test_chunked_run_batch_identical():
 def test_exact_resolve_f32_matches_oracle():
     """Hybrid device/host mode: f32 device EM + host re-solve of
     margin-ambiguous instances must EXACTLY match the f64 oracle.  This
-    is the production TPU contract (run_batch defaults exact_resolve=on
-    for f32) — live-verified byte-identical clusters vs native on v5e
-    with ~10% of instances host-resolved."""
+    is the production contract without x64 (run_batch defaults
+    exact_resolve=on for f32)."""
     rng = np.random.default_rng(21)
     instances = [_instance(rng, rng.integers(1, 4), 24) for _ in range(14)]
     instances.append((np.array([100.0, 101.0, 102.0]),
